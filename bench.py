@@ -1,19 +1,19 @@
 #!/usr/bin/env python
-"""Benchmark: path-tracing throughput on one chip, TWO scene classes.
+"""Benchmark: path-tracing throughput on one GPU, TWO scene classes.
 
-Prints TWO JSON lines:
-  1. cornell box 512^2  (62 tris, brute-force intersection — VPU-bound)
+Prints the device and the card's name and power limit, then TWO JSON lines:
+  1. cornell box 512^2  (62 tris, brute-force intersection)
   2. bunny 1024^2       (4 instanced bunnies, ~66k-tri shared BLAS,
-                         MXU cull-sweep traversal + between-bounce ray
-                         sorting, ops/sweep_bvh.py + ops/sort.py)
+                         skip-link BVH walk, ops/bvh.py)
 
 Each line: {"metric": ..., "value": N, "unit": "rays/s", "vs_baseline": N/1e8}
 
-vs_baseline is against the driver-defined north-star target of 100M rays/s
-per chip (BASELINE.md — the reference publishes no numbers). "Rays" counts
-the casts the estimator actually needs: closest-hit casts on live path lanes
-plus shadow casts with a non-zero potential contribution — the same rays a
-scalar/CUDA tracer would trace for this estimator.
+vs_baseline is against the north-star target of 100M rays/s per chip
+(BASELINE.md — the reference publishes no numbers). "Rays" counts the casts
+the estimator actually needs: closest-hit casts on live path lanes plus
+shadow casts with a non-zero potential contribution — the same rays a
+scalar/CUDA tracer would trace for this estimator. Exits non-zero when JAX
+finds no GPU.
 """
 from __future__ import annotations
 
@@ -25,31 +25,12 @@ import jax.numpy as jnp
 import numpy as np
 
 
-def _morton_ids(width: int) -> np.ndarray:
-    """Pixel ids in 2D Morton order: a 128-lane ray packet becomes a compact
-    square screen block instead of a scanline — fewer cull groups per
-    packet in the sweep kernel (ops/sweep_bvh.py)."""
-    xs = np.arange(width, dtype=np.uint32)
-
-    def spread(v):
-        v = v & 0xFFFF
-        v = (v | (v << 8)) & 0x00FF00FF
-        v = (v | (v << 4)) & 0x0F0F0F0F
-        v = (v | (v << 2)) & 0x33333333
-        v = (v | (v << 1)) & 0x55555555
-        return v
-
-    gx, gy = np.meshgrid(xs, xs)
-    code = spread(gx) | (spread(gy) << 1)
-    flat = (gy * width + gx).ravel()
-    return flat[np.argsort(code.ravel(), kind="stable")].astype(np.int32)
-
-
 def bench_scene(scene, width: int, n_waves: int, max_depth: int = 5,
-                morton: bool = False, sort_rays: bool | None = None) -> float:
+                morton: bool = False, sort_rays: bool = False) -> float:
     from jet_pbrt_tpu.models import camera as camera_mod
     from jet_pbrt_tpu.models.integrators import li_path
     from jet_pbrt_tpu.ops import rng
+    from jet_pbrt_tpu.ops.sort import morton_pixel_ids
 
     meta = scene.meta
     n = width * width
@@ -57,13 +38,12 @@ def bench_scene(scene, width: int, n_waves: int, max_depth: int = 5,
         scene.camera.lookfrom, scene.camera.front, scene.camera.vup,
         scene.camera.vfov, (width, width),
     )
-    ids = jnp.asarray(_morton_ids(width) if morton
+    ids = jnp.asarray(morton_pixel_ids(width) if morton
                       else np.arange(n, dtype=np.int32))
 
     def step(film, rays, pack, s):
-        """One spp wave with donated film accumulator. A Python loop of
-        async-dispatched jitted waves pipelines better on this backend than
-        lax.scan (measured ~30x; scan serializes against the remote host)."""
+        """One spp wave with donated film accumulator, dispatched
+        asynchronously from a Python loop."""
         keys = rng.lane_keys(0, s, ids)
         jitter = rng.camera_jitter(keys)
         x = (ids % width).astype(jnp.float32) + jitter[:, 0]
@@ -99,6 +79,12 @@ def bench_scene(scene, width: int, n_waves: int, max_depth: int = 5,
 
 def main() -> None:
     from jet_pbrt_tpu.scene.scenes import cornell_box, bunny_scene
+    from jet_pbrt_tpu.utils import device
+
+    device.require_gpu()
+    device.enable_compile_cache()
+    print(f"device: {json.dumps(device.describe_devices())}", flush=True)
+    print(f"card: {device.card_name_and_power_limit()}", flush=True)
 
     cornell = cornell_box(lambert_only=False, use_bvh=False)
     rps, cls = bench_scene(cornell, width=512, n_waves=32)

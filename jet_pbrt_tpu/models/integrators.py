@@ -1,6 +1,6 @@
 """Light-transport integrators as batched megakernels.
 
-TPU-native re-design of the reference integrator family
+Batched re-design of the reference integrator family
 (reference: src/integrator.h:27-122, src/integrator.cc). The reference
 traces one ray at a time through virtual calls; here a whole wave of paths
 advances in lockstep through a statically-unrolled bounce loop with per-lane
@@ -49,7 +49,7 @@ _sg = jax.lax.stop_gradient
 
 def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
             nee: bool = True, with_stats: bool = False,
-            sort_rays: bool | None = None):
+            sort_rays: bool = False):
     """Iterative path-traced radiance for a ray batch.
 
     o, d: [N,3] primary rays; u: per-lane PRNG keys [N] or pregenerated
@@ -61,17 +61,11 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
     (both must converge to the same image).
 
     sort_rays permutes lanes between bounces — dead lanes to the tail,
-    live lanes by (origin Morton, direction octant) — so the cull-sweep
-    kernel sees dense coherent packets and all-dead packets exit after one
-    root test (ops/sort.py). The estimate is identical either way; it is
-    purely a traversal-throughput knob, and it DEFAULTS ON whenever the
-    scene routes triangles through the Pallas sweep (its biggest effect is
-    liveness compaction: a 5%-live bounce wave costs ~16x less when the
-    live rays occupy 5% of the packets instead of 8 lanes of every
-    packet).
+    live lanes by (origin Morton, direction octant) — and the shadow
+    batches of the first two bounces likewise (ops/sort.py). The estimate
+    is identical either way; it is purely a traversal-throughput knob, and
+    it is off by default.
     """
-    if sort_rays is None:
-        sort_rays = meta.kernel_routed
     n = o.shape[0]
     nl = meta.n_lights
     L = jnp.zeros((n, 3), jnp.float32)
@@ -86,7 +80,7 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
     # ray-cast accounting for the benchmark: closest-hit casts on live lanes
     # plus shadow casts the estimator needs (an equivalent scalar/CUDA tracer
     # would trace exactly these), split by wave class so throughput
-    # regressions localize themselves (r4 VERDICT task 6)
+    # regressions localize themselves
     n_rays = jnp.zeros((), jnp.float32)
     n_rays_primary = jnp.zeros((), jnp.float32)
     n_rays_bounce = jnp.zeros((), jnp.float32)
@@ -154,10 +148,7 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
         wo_local = to_local(frame, hit.wo)
 
         # -- NEE over all lights (reference: src/integrator.cc:357-372) ----
-        # One occluded() call per light: batching all lights' shadow rays
-        # into one 2M-lane call was A/B'd and LOST (2.83M vs 3.04M rays/s
-        # end-to-end) — the lane concatenations cost more than the saved
-        # per-call floors.
+        # One occluded() call per light.
         nee_batch = []
         for li_idx in range(nl if nee else 0):
             if meta.lights[li_idx].static_black:
@@ -197,14 +188,10 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
             nee_batch.append((useful, _sg(ls.pos), contrib))
         for useful, pos, contrib in nee_batch:
             # deep bounces skip the shadow-batch re-sort: the wave is
-            # already liveness-compacted by the earlier bounce sorts, so
-            # the few useful lanes sit in the first tiles and the ~11 ms
-            # of per-call sort machinery outweighs the lost octant
-            # grouping (the unsorted-RANDOM-mask numbers in
-            # scripts/occl_micro.py do not apply to a compacted wave)
+            # already liveness-compacted by the earlier bounce sorts
             occ = scene_pack.occluded(
                 meta, pack, hit.position, pos, mask=useful,
-                sort=(meta.kernel_routed and bounce < 2))
+                sort=(sort_rays and bounce < 2))
             L = L + jnp.where((useful & ~occ)[:, None], contrib, 0.0)
 
         # -- BSDF sampling (reference: src/integrator.cc:375-379) ----------
@@ -240,13 +227,10 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
             # regroup lanes for the next bounce's traversal (ops/sort.py):
             # argsort (ONE 2-operand sort, compiled once and reused by
             # every sort site in the program) + ONE bitcast-packed [N,19]
-            # gather. A variadic lax.sort carrying the state is ~2x faster
-            # at runtime but costs ~35 s of XLA compile PER SITE at this
-            # payload count; permutation scatters are ~25x slower than the
-            # gather (scripts/perm_micro.py). Deep bounces (>=3) skip the
-            # re-sort: active lanes only ever die, so the dead tail from
-            # the last sort persists and only intra-prefix coherence
-            # drifts — the re-sort costs more than it buys there.
+            # gather; a variadic lax.sort carrying the state compiles much
+            # more slowly per site. Deep bounces (>=3) skip the re-sort:
+            # active lanes only ever die, so the dead tail from the last
+            # sort persists.
             world_lo = pack.world_center - pack.world_radius
             world_inv = 1.0 / jnp.maximum(2.0 * pack.world_radius, 1e-12)
             needs = sort_ops.bvh_needed(
@@ -286,7 +270,7 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
 
     if sort_rays:
         # undo the lane permutation so row i is pixel i again (gather by
-        # the inverse perm; a .at[lane].set scatter is ~25x slower)
+        # the inverse permutation)
         L = L[jnp.argsort(lane)]
     # invalid-sample guard (reference: src/integrator.cc:104 checks validity)
     L = jnp.where(jnp.isfinite(L), L, 0.0)

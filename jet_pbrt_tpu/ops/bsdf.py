@@ -9,8 +9,8 @@ This module replaces three reference layers at once:
   Lambert-vs-GGX pick, reference: src/material.cc:14-16, becomes a per-lane
   select);
 * the FBSDF virtual hierarchy (reference: src/bsdf.h:268-731) — eval/pdf/
-  sample are computed for every lobe kind on the VPU and merged with
-  `jnp.where` on the kind tag, the idiomatic TPU form of polymorphism;
+  sample are computed for every lobe kind on every lane and merged with
+  `jnp.where` on the kind tag, polymorphism without divergence;
 * the local-frame trig helpers (reference: src/bsdf.h:17-60).
 
 All directions here are in the local shading frame (z = geometric normal);
@@ -388,7 +388,7 @@ def pdf(lobe: Lobe, wo, wi, lobes=None, mf_kinds=None) -> jnp.ndarray:
 
 # ---------------------------------------------------------------------------
 # Sampling. Every kind is sampled on every lane and the result selected by
-# the kind tag — no divergence, one fused VPU kernel.
+# the kind tag — no divergence, one fused elementwise kernel.
 # ---------------------------------------------------------------------------
 
 def _sample_lambert(lobe: Lobe, wo, u):

@@ -1,7 +1,7 @@
 """Bounding-volume hierarchy: host-side build, flattened skip-link layout,
 stackless batched traversal.
 
-TPU-native replacement for the reference's recursive pointer BVH
+Array-based replacement for the reference's recursive pointer BVH
 (reference: src/bvh.h:54-146). Three deliberate design divergences, all
 documented in SURVEY.md §7:
 
@@ -190,7 +190,6 @@ def intersect_bvh(nodes, tris, o, d, tmin, tmax,
     full closest-hit traces for shadows, reference: src/scene.h:36-52);
     returned t is meaningless (0), only `valid` matters.
     """
-    n = o.shape[0]
     n_nodes = nodes.shape[0]
     n_tris = tris.shape[0]
 
@@ -291,10 +290,14 @@ def intersect_bvh(nodes, tris, o, d, tmin, tmax,
         node, _, _, pend = state
         return jnp.any((node < n_nodes) | (pend >= 0))
 
-    node0 = jnp.zeros((n,), jnp.int32)
-    t_best0 = jnp.full((n,), jnp.inf, jnp.float32)
-    idx0 = jnp.zeros((n,), jnp.int32)
-    pend0 = jnp.full((n,), -1, jnp.int32)
+    # the initial carries take the type of the per-ray inputs, so that
+    # under shard_map they vary over the same mesh axes as the loop
+    # body's outputs
+    ray = ox + dx + tmin + tmax
+    node0 = jnp.zeros_like(ray, jnp.int32)
+    t_best0 = jnp.full_like(ray, jnp.inf)
+    idx0 = jnp.zeros_like(ray, jnp.int32)
+    pend0 = jnp.full_like(ray, -1, jnp.int32)
     _, t_best, idx_best, _ = lax.while_loop(
         outer_cond, outer_body, (node0, t_best0, idx0, pend0)
     )
@@ -308,7 +311,7 @@ def intersect_instances(inst_off, inst_scale, blas_nodes, blas_tris,
     """Closest hit over instanced copies of one BLAS (XLA path).
 
     Two-level acceleration: each instance is (uniform scale, translation) of
-    a shared triangle mesh + BVH — the TPU-native answer to the reference's
+    a shared triangle mesh + BVH — the batched answer to the reference's
     four separately-loaded bunny copies (reference: src/main.cc:94-107),
     shrinking the hot node/triangle tables by the instance count. Rays are
     transformed into instance space (o' = (o-off)/s, d unchanged, t' = t/s)
@@ -318,23 +321,24 @@ def intersect_instances(inst_off, inst_scale, blas_nodes, blas_tris,
 
     Returns hit indices encoded as instance * n_blas_tris + triangle.
     """
-    n_inst = inst_off.shape[0]
     n_blas_tris = blas_tris.shape[0]
-    n = o.shape[0]
-    t_best = jnp.full((n,), jnp.inf, jnp.float32)
-    idx_best = jnp.zeros((n,), jnp.int32)
-    for i in range(n_inst):
-        off = inst_off[i]
+
+    def one_instance(i, best):
+        t_best, idx_best = best
         s = inst_scale[i]
         inv = 1.0 / s
-        o_l = (o - off) * inv
+        o_l = (o - inst_off[i]) * inv
         h = intersect_bvh(blas_nodes, blas_tris, o_l, d,
                           tmin * inv, jnp.minimum(tmax, t_best) * inv,
                           leaf_size=leaf_size, any_hit=any_hit)
         t_w = h.t * s
         closer = h.valid & (t_w < t_best)
-        t_best = jnp.where(closer, t_w, t_best)
-        idx_best = jnp.where(
-            closer, i * n_blas_tris + h.index, idx_best
-        )
+        return (jnp.where(closer, t_w, t_best),
+                jnp.where(closer, i * n_blas_tris + h.index, idx_best))
+
+    # one traced walk, looped over instances (not unrolled per instance)
+    ray = o[:, 0] + d[:, 0] + tmin + tmax
+    t_best, idx_best = lax.fori_loop(
+        0, inst_off.shape[0], one_instance,
+        (jnp.full_like(ray, jnp.inf), jnp.zeros_like(ray, jnp.int32)))
     return KindHit(t=t_best, index=idx_best, valid=jnp.isfinite(t_best))

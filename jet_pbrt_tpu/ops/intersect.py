@@ -1,12 +1,12 @@
 """Batched ray ↔ shape intersection kernels.
 
-TPU-native replacement for the reference's virtual FShape::Intersect scalar
+Batched replacement for the reference's virtual FShape::Intersect scalar
 methods (reference: src/shape.h:200-221 disk, 291-327 triangle, 399-435
 rectangle, 487-526 sphere). Design: geometry lives in SoA device arrays, one
 array family per shape kind, and each kernel intersects a whole ray batch
-against a whole shape batch at once — pure VPU work with no divergence. The
-reference's mutable `ray.max_t` shrinking becomes a functional min-reduction
-over candidate ts.
+against a whole shape batch at once — pure elementwise work with no
+divergence. The reference's mutable `ray.max_t` shrinking becomes a
+functional min-reduction over candidate ts.
 
 Convention: a ray is (o, d, tmin, tmax) with d unit length; a "kind hit" is
 the tuple (t, index, valid) of per-ray closest hit among shapes of that kind.
@@ -41,9 +41,9 @@ def _closest(t_nm: jnp.ndarray, valid_nm: jnp.ndarray) -> KindHit:
 def _closest_mn(t_mn: jnp.ndarray, valid_mn: jnp.ndarray) -> KindHit:
     """Reduce [M, N] (shape-major) candidates to the per-ray closest.
 
-    Shape-major orientation keeps the big ray axis minor, i.e. in the
-    128-wide TPU lane dimension, so the candidate math runs at full VPU
-    utilization instead of wasting lanes on a small shape count."""
+    Shape-major orientation keeps the big ray axis minor (contiguous), so
+    the candidate math vectorizes over rays rather than over a small
+    shape count."""
     t_masked = jnp.where(valid_mn, t_mn, NO_HIT_T)
     idx = jnp.argmin(t_masked, axis=0).astype(jnp.int32)
     t = jnp.min(t_masked, axis=0)
@@ -71,8 +71,7 @@ def empty_hit(n: int) -> KindHit:
 
 def intersect_triangles(o, d, tmin, tmax, p0, p1, p2) -> KindHit:
     """o,d: [N,3]; p0,p1,p2: [T,3]. Shape-major [T,N] component math — the
-    ray axis stays lane-minor for full VPU width (use the BVH kernel for
-    large T)."""
+    ray axis stays minor (use the BVH walk for large T)."""
     ox, oy, oz = (c[None, :] for c in _c3(o))        # [1,N]
     dx, dy, dz = (c[None, :] for c in _c3(d))
     p0x, p0y, p0z = (c[:, None] for c in _c3(p0))    # [T,1]

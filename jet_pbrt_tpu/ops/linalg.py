@@ -1,8 +1,8 @@
 """Batched 3-vector math on `[..., 3]` float32 arrays.
 
-TPU-native replacement for the reference's scalar FVector3/FFrame/FBounds3
+Batched replacement for the reference's scalar FVector3/FFrame/FBounds3
 classes (reference: src/geometry.h:22-420). Everything here is shape-
-polymorphic over leading batch dims and maps onto the VPU; there are no
+polymorphic over leading batch dims and is plain elementwise work; there are no
 classes holding state — a "frame" is just a tuple of three direction arrays.
 """
 from __future__ import annotations

@@ -10,7 +10,7 @@ slope-space CDF numerically (TrowbridgeReitzSample11 with polynomial fits
 and Newton steps, reference: src/microfacet.cc:256-357). We instead use
 Heitz's 2018 spherical-cap VNDF construction — it samples the *same*
 D_visible distribution (identical pdf) with ~10 flops and no data-dependent
-iteration, which is exactly what the TPU VPU wants. Beckmann has no such
+iteration, which is exactly what lockstep batched lanes want. Beckmann has no such
 closed form, so its VNDF sampler (the reference's default samplevis=true
 branch, reference: src/microfacet.cc:212-254) is the slope-space erf-CDF
 inversion re-done branch-free: the reference's early-exit Newton/bisection

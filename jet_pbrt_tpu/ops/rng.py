@@ -1,6 +1,6 @@
 """Counter-based random streams for path tracing.
 
-TPU-native replacement for the reference's stateful mt19937_64 samplers
+Stateless replacement for the reference's stateful mt19937_64 samplers
 (reference: src/sampler.h:16-185). Instead of mutable per-thread generator
 state — which cannot exist inside a traced XLA program — every random number
 is a pure function of (seed, sample_index, pixel_id, purpose): we derive one
@@ -97,7 +97,7 @@ def vertex_uniforms(u, bounce: int, n_lights: int) -> jnp.ndarray:
     """Per-vertex uniforms [n, S] for one bounce, S = 4 + 2 * n_lights.
 
     `u` is either a [n] key array (each lane draws its own pixel's stream —
-    one batched threefry call, the TPU-idiomatic replacement for the
+    one batched threefry call, the array-program replacement for the
     reference's sequential GetFloat() calls) or a pregenerated
     [n, max_depth+1, S] tensor (debug sampler)."""
     if not is_key_array(u):

@@ -1,7 +1,7 @@
 """Sampling warps, their PDFs, and MIS heuristics — batched over [...]-shaped
 uniform inputs.
 
-TPU-native equivalent of the reference's free-function warps
+Batched equivalent of the reference's free-function warps
 (reference: src/sampling.h:17-137). All functions take uniforms u with
 u[..., 0], u[..., 1] in [0,1) and return arrays with matching batch shape.
 """

@@ -1,26 +1,57 @@
 """Ray reordering between bounces: liveness compaction + coherence sorting.
 
-The TPU-native form of wavefront compaction (SURVEY.md §7's "central
-architectural experiment"). XLA programs have static shapes, so paths are
-never physically removed from the wave; instead lanes are *permuted* so that
+XLA programs have static shapes, so paths are never physically removed
+from the wave (SURVEY.md §7's wavefront-compaction experiment); instead
+lanes are *permuted* so that
 
-  * dead lanes cluster at the tail — the cull-sweep kernel
-    (ops/sweep_bvh.py) skips an all-dead 128-ray packet after one root
-    test, so compaction alone collapses a 5%-live bounce wave from "every
-    packet pays a sphere sweep" to a handful of dense live packets; the
-    XLA skip-link walk likewise drains dead lanes in one step;
-  * live lanes sort by the 128-tri GROUP id of their previous hit, then by
-    direction octant — rays that bounced off the same patch of mesh cull
-    to nearly the same group set, a far tighter traversal-locality proxy
-    than world-space position (measured: world-Morton keys GREW pop counts
-    on real bounce waves by concentrating unrelated rays into one packet).
+  * dead lanes cluster at the tail, and
+  * live lanes sort by origin Morton code, then by direction octant, so
+    neighbouring lanes tend to visit the same BVH nodes.
+
+The estimate is identical with or without the permutation. Off by default
+(`sort_rays=False` in models/integrators.py, `sort=False` in
+scene/pack.occluded).
 
 The reference has no analogue (one CPU thread per tile never diverges); this
 replaces the warp-compaction / ray-binning step of GPU wavefront tracers.
 """
 from __future__ import annotations
 
+import numpy as np
 import jax.numpy as jnp
+
+
+def mesh_root_sphere(tris_mt: np.ndarray) -> np.ndarray:
+    """[4] f32 bounding sphere (cx, cy, cz, r) of a [T,9] Moller-Trumbore
+    triangle table (p0, e1, e2), for the needs-BVH pre-test below."""
+    a = np.asarray(tris_mt, np.float64)
+    if len(a) == 0:
+        return np.zeros(4, np.float32)
+    p0, e1, e2 = a[:, 0:3], a[:, 3:6], a[:, 6:9]
+    v = np.concatenate([p0, p0 + e1, p0 + e2], axis=0)
+    c = 0.5 * (v.min(axis=0) + v.max(axis=0))
+    r = float(np.sqrt(((v - c) ** 2).sum(axis=1).max())) * (1 + 1e-6)
+    return np.array([c[0], c[1], c[2], r], np.float32)
+
+
+def morton_pixel_ids(width: int) -> np.ndarray:
+    """Pixel ids of a width x width image in 2D Morton order, so that a
+    contiguous run of lanes covers a compact square block of the screen
+    instead of a scanline."""
+    xs = np.arange(width, dtype=np.uint32)
+
+    def spread(v):
+        v = v & 0xFFFF
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        v = (v | (v << 1)) & 0x55555555
+        return v
+
+    gx, gy = np.meshgrid(xs, xs)
+    code = spread(gx) | (spread(gy) << 1)
+    flat = (gy * width + gx).ravel()
+    return flat[np.argsort(code.ravel(), kind="stable")].astype(np.int32)
 
 
 def _part1by2(x: jnp.ndarray) -> jnp.ndarray:
@@ -50,15 +81,11 @@ def ray_sort_key(active, o, d, world_lo, world_inv,
     the largest keys so live rays pack densely at the front of the wave.
 
     needs_bvh: optional [N] bool — live lanes whose ray cannot touch any
-    BVH root sphere sort BEHIND the ones that can, so the (expensive)
-    traversal packets stay dense and the rest retire on the kernel's
-    per-packet root pre-test. See bvh_needed().
+    BVH root sphere sort BEHIND the ones that can, so the lanes that need
+    a walk sit together. See bvh_needed().
 
-    Origin-MAJOR, octant-minor: bounce-ray origins are hit points, so
-    fine spatial clustering groups rays that will cull to the same
-    128-triangle sweep groups. (The r3 octant-major ordering measurably
-    GREW traversal work: it concentrated unrelated far-apart rays into
-    single packets.)"""
+    Origin-major, octant-minor: bounce-ray origins are hit points, so fine
+    spatial clustering groups rays that will visit the same nodes."""
     q = jnp.clip(
         ((o - world_lo) * world_inv * 128.0).astype(jnp.int32), 0, 127
     )
@@ -77,11 +104,10 @@ def ray_sort_key(active, o, d, world_lo, world_inv,
 def bvh_needed(meta, pack, o, d, tmin, tmax) -> jnp.ndarray:
     """[N] bool: could the ray segment touch ANY BVH root sphere?
 
-    A ~30-flop/lane/instance dense pre-test (XLA elementwise, no kernel)
-    that feeds the sort keys: most bounce/shadow rays in an instanced
-    scene miss every instance, and packing the misses together turns
-    whole 128-ray packets into one-root-test exits inside the sweep
-    kernel. Conservative: padding-radius slack over-includes only."""
+    A ~30-flop/lane/instance dense pre-test that feeds the sort keys: most
+    bounce/shadow rays in an instanced scene miss every instance, and
+    packing the misses together keeps them out of the walk's lanes.
+    Conservative: padding-radius slack over-includes only."""
     n = o.shape[0]
     need = jnp.zeros((n,), bool)
 
@@ -93,14 +119,12 @@ def bvh_needed(meta, pack, o, d, tmin, tmax) -> jnp.ndarray:
                 & (tc + r >= tmin) & (tc - r <= tmax) & (tmax >= tmin))
 
     if meta.use_bvh and meta.n_tri:
-        # bvh_s_root is always a real sphere (builder computes it for every
-        # mesh regardless of traversal route)
-        root = pack.bvh_s_root
-        need = need | seg_hits_sphere(root[0:3], root[5])
+        root = pack.bvh_root
+        need = need | seg_hits_sphere(root[0:3], root[3])
     for mi in range(len(meta.n_inst)):
-        root = pack.inst_s_root[mi]
+        root = pack.inst_root[mi]
         c_l = root[0:3]
-        r_l = root[5]
+        r_l = root[3]
         for i in range(meta.n_inst[mi]):
             c = c_l * pack.inst_scale[mi][i] + pack.inst_off[mi][i]
             need = need | seg_hits_sphere(

@@ -1,6 +1,6 @@
 """Texture sampling: solid / 3D sine checker / image (nearest + bilinear).
 
-TPU-native equivalent of the reference's FTexture hierarchy
+Batched equivalent of the reference's FTexture hierarchy
 (reference: src/texture.h, src/texture.cc) — which is *dead code* there (no
 material references any FTexture; SURVEY.md §2 #36). Here textures are wired
 into materials for real: a material row carries a texture id, and the

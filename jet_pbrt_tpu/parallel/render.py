@@ -2,8 +2,8 @@
 
 The whole frame is computed by one shard_map program: every device renders
 its pixel block for its slice of sample indices, accumulates a local film,
-and the spp axis is reduced with `lax.psum` — film-tile merging as an ICI
-collective instead of the reference's shared-memory FFilmView writes
+and the spp axis is reduced with `lax.psum` — film-tile merging as a
+device collective instead of the reference's shared-memory FFilmView writes
 (reference: src/integrator.cc:53-71, src/film.h:103-136). The scene pack and
 camera are replicated (in_specs P()); the film comes back sharded over px
 (out_specs P("px")), so on real hardware the gather happens only if the host
@@ -31,7 +31,7 @@ from ..ops import rng
 
 def build_sharded_render(meta, mesh, width: int, height: int, spp: int,
                          seed: int = 0, max_depth: int = 5, mis: bool = False,
-                         sampler: str = "random", sort_rays: bool | None = None):
+                         sampler: str = "random", sort_rays: bool = False):
     """Returns fn(pack, cam) -> [H*W, 3] flat film (averaged over spp),
     jit-compiled over `mesh`.
 
@@ -83,7 +83,7 @@ def build_sharded_render(meta, mesh, width: int, height: int, spp: int,
             to="varying",
         )
         film, _ = lax.scan(step, film0, jnp.arange(local_spp))
-        # merge sample-parallel partial films over ICI
+        # merge sample-parallel partial films
         film = lax.psum(film, "spp")
         return film / jnp.float32(spp)
 

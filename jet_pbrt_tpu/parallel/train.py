@@ -3,7 +3,7 @@ rendering) over the device mesh.
 
 The forward render is the shard_map program of parallel/render.py; because
 scene parameters are replicated across the mesh, jax.grad through shard_map
-produces gradients that XLA all-reduces over ICI automatically — the
+produces gradients that XLA all-reduces automatically — the
 overlapped gradient all-reduce of the BASELINE north star without a single
 hand-written collective.
 """

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from ..ops import bsdf as bsdf_ops
 from ..ops.linalg import RAY_EPS_REL
+from ..ops.sort import mesh_root_sphere
 from .pack import (
     KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK, KIND_INST,
     LIGHT_POINT, LIGHT_DIRECTIONAL, LIGHT_AREA, LIGHT_ENV,
@@ -416,21 +417,10 @@ class SceneBuilder:
         if use_bvh is None:
             use_bvh = n_tri > 64
 
-        # Traversal-route leaf sizes: the Pallas wide kernel wants fat
-        # 16-tri leaves (one one-hot MXU fetch tests a whole leaf); the XLA
-        # walk prefers the caller's bvh_leaf_size. The row tables follow
-        # whatever order the chosen build emits, so the leaf size is fixed
-        # per mesh at build time.
-        import jax
-        on_tpu = jax.default_backend() == "tpu"
-        wide_leaf = 16
-        soup_leaf = wide_leaf if (on_tpu and use_bvh and n_tri) \
-            else bvh_leaf_size
-
         if use_bvh and n_tri:
             from ..ops.bvh import build_bvh
             bvh, order = build_bvh(
-                tri_p0, tri_p1, tri_p2, leaf_size=soup_leaf
+                tri_p0, tri_p1, tri_p2, leaf_size=bvh_leaf_size
             )
             tri_p0, tri_p1, tri_p2 = tri_p0[order], tri_p1[order], tri_p2[order]
             tri_n, tri_mat, tri_light = tri_n[order], tri_mat[order], tri_light[order]
@@ -445,7 +435,7 @@ class SceneBuilder:
                 new_lights.append((lm, c, p, d))
             self._lights = new_lights
             from ..ops.bvh import pack_node_table
-            bvh_nodes = pack_node_table(bvh, len(order), soup_leaf)
+            bvh_nodes = pack_node_table(bvh, len(order), bvh_leaf_size)
             bvh_tris = np.concatenate(
                 [tri_p0, tri_p1 - tri_p0, tri_p2 - tri_p0], axis=1
             ).astype(np.float32)
@@ -465,11 +455,10 @@ class SceneBuilder:
             f_scale = np.array([r[1] for r in rows], np.float32)
             f_mat = np.array([r[2] for r in rows], np.int32)
             f_light = np.array([r[3] for r in rows], np.int32)
-            f_leaf = wide_leaf if on_tpu else bvh_leaf_size
             t0, t1, t2 = m["tris"][:, 0], m["tris"][:, 1], m["tris"][:, 2]
-            blas, border = build_bvh(t0, t1, t2, leaf_size=f_leaf)
+            blas, border = build_bvh(t0, t1, t2, leaf_size=bvh_leaf_size)
             t0, t1, t2 = t0[border], t1[border], t2[border]
-            f_blas_nodes = pack_node_table(blas, len(border), f_leaf)
+            f_blas_nodes = pack_node_table(blas, len(border), bvh_leaf_size)
             f_blas_tris = np.concatenate(
                 [t0, t1 - t0, t2 - t0], axis=1
             ).astype(np.float32)
@@ -501,103 +490,8 @@ class SceneBuilder:
                 blas_n=m["n"][border], blas_uv=m["uv"][border],
                 tlas_nodes=pack_node_table(tlas, len(torder), 1),
                 em_tris=em_tris, em_n=em_n,
-                blas_raw=blas, tlas_raw=tlas, leaf=f_leaf,
+                root=mesh_root_sphere(f_blas_tris),
             ))
-
-        # Traversal routing — exactly one reachable implementation per role
-        # (r4 VERDICT task 1, decided by the committed end-to-end A/B in
-        # scripts/kernel_ab_r5_results.txt):
-        #   * TPU + tables fit VMEM  -> 8-wide Pallas packet kernel
-        #     (ops/wide_bvh.py) — fastest on every measured wave class
-        #   * TPU + mesh beyond VMEM -> HBM-streamed MXU cull-sweep
-        #     (ops/sweep_bvh.py, stream_bw) — only the sphere table must be
-        #     resident
-        #   * otherwise (CPU tests, >31 instances, >8192 groups) -> XLA
-        #     skip-link walk over the row tables
-        # Exactly one NODE layout is populated per mesh; the row triangle
-        # tables stay for the family shading path (barycentrics/normals).
-        from ..ops import sweep_bvh as sweep
-        from ..ops import wide_bvh as wide
-        n_bvh_nodes = int(bvh_nodes.shape[0])
-        n_bvh_tris = int(bvh_tris.shape[0])
-
-        ident = sweep.flat_inst(np.zeros((0, 3), np.float32),
-                                np.zeros(0, np.float32))
-
-        def _empty_sweep():
-            return (np.zeros((8, 128), np.float32),
-                    np.zeros((12, 128), np.float32))
-
-        def _empty_wide(leaf):
-            import ml_dtypes
-            return (np.zeros((6 * wide.WIDTH, 128), ml_dtypes.bfloat16),
-                    np.full((1 * wide.WIDTH,), -1, np.int32),
-                    np.zeros((9 * leaf, 128), np.float32),
-                    ident)
-
-        bvh_s = _empty_sweep()
-        bvh_root = sweep.mesh_root_sphere(bvh_tris)
-        bvh_w = _empty_wide(soup_leaf)
-        n_groups_bvh = 0
-        pallas_bvh = False
-        wide_bvh = False
-        if use_bvh and on_tpu and n_tri:
-            wb, wm, wt, wi, n_w, _root0 = wide.wide_tables(
-                bvh, bvh_tris, soup_leaf)
-            if wide.fits_vmem(n_w, n_bvh_tris, soup_leaf):
-                wide_bvh = True
-                bvh_w = (wb, wm, wt, wi)
-            elif (n_bvh_tris + 127) // 128 <= sweep.max_groups():
-                # beyond VMEM: HBM-streamed sweep (13-bit group cap = 1M
-                # tris; bigger soups fall through to the XLA walk). The BW
-                # table is pre-padded to 16 rows: Mosaic HBM DMA slices
-                # must be 8-sublane aligned.
-                bw_t, sph_t, _r, n_groups_bvh = sweep.build_sweep_tables(
-                    bvh_tris)
-                pallas_bvh = True
-                bvh_s = (sph_t, np.pad(bw_t, ((0, 4), (0, 0))))
-            if wide_bvh or pallas_bvh:
-                # the shading path never reads the soup's row MT table
-                # (unlike blas_tris), so drop both row tables here
-                bvh_nodes = np.zeros((0, 8), np.float32)
-                bvh_tris = np.zeros((0, 9), np.float32)
-        pallas_blas = []
-        wide_blas = []
-        wide_blas_root = []
-        n_groups_blas = []
-        for f in fam_tabs:
-            n_i = len(f["scale"])
-            t_i = int(f["blas_tris"].shape[0])
-            f["root"] = sweep.mesh_root_sphere(f["blas_tris"])
-            f["s_sph"], f["s_bw"] = _empty_sweep()
-            f["s_tbl"] = ident
-            f["w"] = _empty_wide(f["leaf"])
-            routed_wide = routed_sweep = False
-            wroot = 0
-            ng_t = 0
-            if on_tpu and n_i < 32:  # 5-bit instance fields in both kernels
-                wb, wm, wt, wi, n_w, wroot = wide.wide_tables_instanced(
-                    f["tlas_raw"], f["blas_raw"], f["blas_tris"],
-                    f["off"], f["scale"], f["leaf"])
-                if wide.fits_vmem(n_w, t_i, f["leaf"]):
-                    routed_wide = True
-                    f["w"] = (wb, wm, wt, wi)
-                elif (t_i + 127) // 128 <= sweep.max_groups():
-                    bw_t, sph_t, _r, ng_t = sweep.build_sweep_tables(
-                        f["blas_tris"])
-                    # 16-row pad: streamed DMA slices need 8-row alignment
-                    f["s_sph"] = sph_t
-                    f["s_bw"] = np.pad(bw_t, ((0, 4), (0, 0)))
-                    f["s_tbl"] = sweep.flat_inst(f["off"], f["scale"])
-                    routed_sweep = True
-            if routed_wide or routed_sweep:
-                f["blas_nodes"] = np.zeros((0, 8), np.float32)
-            if not routed_wide:
-                wroot = 0
-            wide_blas.append(routed_wide)
-            wide_blas_root.append(wroot)
-            pallas_blas.append(routed_sweep)
-            n_groups_blas.append(ng_t)
 
         lobe_map = {
             bsdf_ops.MAT_MATTE: (bsdf_ops.LOBE_LAMBERT,),
@@ -642,24 +536,10 @@ class SceneBuilder:
             n_tex=n_tex,
             present_lobes=present_lobes,
             present_mf_kinds=present_mf_kinds,
-            n_bvh_nodes=n_bvh_nodes,
-            n_bvh_tris=n_bvh_tris,
             n_inst=tuple(len(f["scale"]) for f in fam_tabs),
-            n_blas_nodes=tuple(int(f["blas_nodes"].shape[0])
-                               for f in fam_tabs),
             n_blas_tris=tuple(int(f["blas_tris"].shape[0])
                               for f in fam_tabs),
-            n_tlas_nodes=tuple(int(f["tlas_nodes"].shape[0])
-                               for f in fam_tabs),
-            pallas_bvh=pallas_bvh,
-            pallas_blas=tuple(pallas_blas),
-            n_groups_bvh=n_groups_bvh,
-            n_groups_blas=tuple(n_groups_blas),
-            bvh_leaf_size=soup_leaf,
-            wide_bvh=wide_bvh,
-            wide_blas=tuple(wide_blas),
-            wide_blas_root=tuple(wide_blas_root),
-            blas_leaf_size=tuple(f["leaf"] for f in fam_tabs),
+            bvh_leaf_size=bvh_leaf_size,
         )
         pack = ScenePack(
             tri_p0=jnp.asarray(tri_p0), tri_p1=jnp.asarray(tri_p1),
@@ -691,14 +571,7 @@ class SceneBuilder:
                 else max(float(2.0 * radius) * RAY_EPS_REL, 1e-30),
                 jnp.float32),
             bvh_nodes=jnp.asarray(bvh_nodes), bvh_tris=jnp.asarray(bvh_tris),
-            bvh_s_sph=jnp.asarray(bvh_s[0]),
-            bvh_s_bw=jnp.asarray(bvh_s[1]),
-            bvh_s_root=jnp.asarray(bvh_root),
-            bvh_s_inst=jnp.asarray(ident),
-            bvh_w_bounds=jnp.asarray(bvh_w[0]),
-            bvh_w_meta=jnp.asarray(bvh_w[1]),
-            bvh_w_tris=jnp.asarray(bvh_w[2]),
-            bvh_w_inst=jnp.asarray(bvh_w[3]),
+            bvh_root=jnp.asarray(mesh_root_sphere(bvh_tris)),
             blas_nodes=tuple(jnp.asarray(f["blas_nodes"])
                              for f in fam_tabs),
             blas_tris=tuple(jnp.asarray(f["blas_tris"]) for f in fam_tabs),
@@ -710,14 +583,7 @@ class SceneBuilder:
             inst_light=tuple(jnp.asarray(f["light"]) for f in fam_tabs),
             tlas_nodes=tuple(jnp.asarray(f["tlas_nodes"])
                              for f in fam_tabs),
-            inst_s_sph=tuple(jnp.asarray(f["s_sph"]) for f in fam_tabs),
-            inst_s_bw=tuple(jnp.asarray(f["s_bw"]) for f in fam_tabs),
-            inst_s_root=tuple(jnp.asarray(f["root"]) for f in fam_tabs),
-            inst_s_tbl=tuple(jnp.asarray(f["s_tbl"]) for f in fam_tabs),
-            inst_w_bounds=tuple(jnp.asarray(f["w"][0]) for f in fam_tabs),
-            inst_w_meta=tuple(jnp.asarray(f["w"][1]) for f in fam_tabs),
-            inst_w_tris=tuple(jnp.asarray(f["w"][2]) for f in fam_tabs),
-            inst_w_inst=tuple(jnp.asarray(f["w"][3]) for f in fam_tabs),
+            inst_root=tuple(jnp.asarray(f["root"]) for f in fam_tabs),
             inst_em_tris=tuple(jnp.asarray(f["em_tris"])
                                for f in fam_tabs),
             inst_em_n=tuple(jnp.asarray(f["em_n"]) for f in fam_tabs),

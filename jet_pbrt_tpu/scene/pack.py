@@ -1,6 +1,6 @@
 """ScenePack: the whole scene as a pytree of packed SoA device arrays.
 
-TPU-native replacement for the reference's FScene registry of shared_ptr
+Array-batched replacement for the reference's FScene registry of shared_ptr
 object graphs (reference: src/scene.h:130-143) and FPrimitive
 {shape*, material*, arealight*} triples (reference: src/primitive.h:20-64).
 A primitive here is a row: geometry arrays carry parallel `*_mat` and
@@ -68,9 +68,6 @@ class SceneMeta:
     lights: tuple  # tuple[LightMeta, ...]
     use_bvh: bool = False
     n_tex: int = 0
-    # static BVH table sizes (unpadded), for the Pallas packet kernel
-    n_bvh_nodes: int = 0
-    n_bvh_tris: int = 0
     # static set of BSDF lobe kinds the scene's materials can resolve to;
     # None means "all" (bsdf.ALL_LOBES)
     present_lobes: tuple | None = None
@@ -80,39 +77,14 @@ class SceneMeta:
     # instanced-mesh subsystem: one entry PER MESH FAMILY (each family =
     # one shared BLAS + its instances); empty tuples = no instancing
     n_inst: tuple = ()
-    n_blas_nodes: tuple = ()
     n_blas_tris: tuple = ()
-    n_tlas_nodes: tuple = ()
-    # Traversal routing, decided at build time (see scene/builder.py and
-    # the committed A/B in scripts/kernel_ab_r5_results.txt):
-    #   wide_*   -> 8-wide Pallas packet kernel (TPU, tables fit VMEM)
-    #   pallas_* -> HBM-streamed MXU cull-sweep (TPU, mesh beyond VMEM)
-    #   neither  -> XLA skip-link walk over the row tables
-    # The builder only populates the matching table layout, so these are
-    # also memory-layout contracts.
-    pallas_bvh: bool = False
-    pallas_blas: tuple = ()
-    wide_bvh: bool = False
-    wide_blas: tuple = ()
-    wide_blas_root: tuple = ()   # per-family TLAS wide-node count
-    # 128-tri cull-group counts for the sweep kernel (ops/sweep_bvh.py)
-    n_groups_bvh: int = 0
-    n_groups_blas: tuple = ()
-    # triangles per BVH leaf (static unroll factor in the XLA walk / wide
-    # kernel) — soup and per-family
+    # triangles per BVH leaf (static unroll factor of the walk), shared by
+    # the soup BVH and every BLAS
     bvh_leaf_size: int = 4
-    blas_leaf_size: tuple = ()
 
     @property
     def n_lights(self) -> int:
         return len(self.lights)
-
-    @property
-    def kernel_routed(self) -> bool:
-        """True when any mesh routes through a Pallas traversal kernel —
-        the signal for ray sorting to default ON."""
-        return bool(self.wide_bvh or self.pallas_bvh
-                    or any(self.wide_blas) or any(self.pallas_blas))
 
     @property
     def env_light_indices(self) -> tuple:
@@ -180,21 +152,8 @@ class ScenePack(NamedTuple):
     #   bvh_tris[T', 9] = p0.xyz, e1.xyz, e2.xyz (MT-ready edges)
     bvh_nodes: jnp.ndarray      # [B,8] f32
     bvh_tris: jnp.ndarray       # [T',9] f32
-    # cull-sweep tables for the Pallas MXU kernel (ops/sweep_bvh.py):
-    # Baldwin-Weber triangle rows + per-128-tri-group bounding spheres.
-    # Exactly ONE of the row/sweep layouts is populated per build
-    # (meta.pallas_bvh) — carrying both would double BVH HBM for big meshes.
-    bvh_s_sph: jnp.ndarray      # [8,Gp] f32 group spheres
-    bvh_s_bw: jnp.ndarray       # [12,Tp] f32 Baldwin-Weber rows
-    bvh_s_root: jnp.ndarray     # [8] f32 mesh sphere (SMEM; ALWAYS real —
-                                # also feeds the needs-BVH sort pre-test)
-    bvh_s_inst: jnp.ndarray     # [4] f32 identity instance row (SMEM)
-    # 8-wide packet-kernel tables (ops/wide_bvh.py), populated iff
-    # meta.wide_bvh
-    bvh_w_bounds: jnp.ndarray   # [48,Np] bf16 planar child bounds
-    bvh_w_meta: jnp.ndarray     # [N8*8] i32 flat push templates (SMEM)
-    bvh_w_tris: jnp.ndarray     # [9*leaf,Lp] f32 leaf-major triangles
-    bvh_w_inst: jnp.ndarray     # [4] f32 identity instance row (SMEM)
+    bvh_root: jnp.ndarray       # [4] f32 bounding sphere (c.xyz, r) of
+                                # bvh_tris, for the sort-key pre-test
     # instanced-mesh subsystem, one tuple entry per MESH FAMILY: a shared
     # BLAS (bottom-level BVH over the mesh in local space) + a
     # per-instance table + a TLAS over instance world bounds. Instance
@@ -208,16 +167,7 @@ class ScenePack(NamedTuple):
     inst_mat: tuple             # ([I] int32 material per instance,)*
     inst_light: tuple           # ([I] int32, -1 = not emissive,)*
     tlas_nodes: tuple           # ([K,8] skip-link; leaf = instance*8+1,)*
-    # shared-BLAS cull-sweep tables for the Pallas kernel, per mesh family
-    inst_s_sph: tuple           # ([8,Gp] f32 group spheres (local),)*
-    inst_s_bw: tuple            # ([12,Tp] f32 Baldwin-Weber rows,)*
-    inst_s_root: tuple          # ([8] f32 BLAS sphere (SMEM; always real),)*
-    inst_s_tbl: tuple           # ([(I+1)*4] f32 flat off/scale (SMEM),)*
-    # 8-wide packet-kernel tables per family (iff meta.wide_blas[mi])
-    inst_w_bounds: tuple        # ([48,Np] bf16,)*
-    inst_w_meta: tuple          # ([Nm*8] i32 flat templates (SMEM),)*
-    inst_w_tris: tuple          # ([9*leaf,Lp] f32 leaf-major,)*
-    inst_w_inst: tuple          # ([(I+1)*4] f32 flat off/scale (SMEM),)*
+    inst_root: tuple            # ([4] f32 local BLAS bounding sphere,)*
     # emissive-instance light-sampling table: the RAW local mesh, exactly
     # one row per real triangle. blas_tris cannot be used for sampling:
     # the BVH build pads leaves by DUPLICATING triangles, which would
@@ -244,35 +194,19 @@ def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
     """Closest hit per shape kind; only kinds present in the scene are
     traced (static dispatch — array sizes are trace-time constants).
 
-    BVH routing is decided at build time (meta.pallas_bvh/pallas_blas: TPU
-    backend + tables fit VMEM -> Pallas cull-sweep kernel; otherwise the
-    pure-XLA skip-link walk). Both paths produce identical hits (up to
-    Baldwin-Weber vs Moller-Trumbore rounding). any_hit=True is the
+    Triangle meshes take the skip-link BVH walk (ops/bvh.py) when the scene
+    was built with a BVH, brute force otherwise. any_hit=True is the
     occlusion variant: only `valid` is meaningful in the BVH kinds'
     results."""
+    from ..ops import bvh as bvh_ops
+
     hits, kinds = [], []
     if meta.n_tri:
         if meta.use_bvh:
-            if meta.wide_bvh:
-                from ..ops import wide_bvh
-                hits.append(wide_bvh.intersect_wide(
-                    pack.bvh_w_meta, pack.bvh_w_bounds, pack.bvh_w_tris,
-                    pack.bvh_w_inst, meta.n_bvh_tris, o, d, tmin, tmax,
-                    leaf_size=meta.bvh_leaf_size, any_hit=any_hit,
-                ))
-            elif meta.pallas_bvh:
-                from ..ops import sweep_bvh
-                hits.append(sweep_bvh.intersect_sweep(
-                    pack.bvh_s_sph, pack.bvh_s_bw, pack.bvh_s_inst,
-                    pack.bvh_s_root, meta.n_bvh_tris, meta.n_groups_bvh,
-                    o, d, tmin, tmax, any_hit=any_hit,
-                ))
-            else:
-                from ..ops import bvh as bvh_ops
-                hits.append(bvh_ops.intersect_bvh(
-                    pack.bvh_nodes, pack.bvh_tris, o, d, tmin, tmax,
-                    leaf_size=meta.bvh_leaf_size, any_hit=any_hit,
-                ))
+            hits.append(bvh_ops.intersect_bvh(
+                pack.bvh_nodes, pack.bvh_tris, o, d, tmin, tmax,
+                leaf_size=meta.bvh_leaf_size, any_hit=any_hit,
+            ))
         else:
             hits.append(
                 isect_ops.intersect_triangles(
@@ -281,31 +215,11 @@ def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
             )
         kinds.append(KIND_TRI)
     for mi in range(len(meta.n_inst)):
-        if meta.wide_blas[mi]:
-            from ..ops import wide_bvh
-            hits.append(wide_bvh.intersect_wide(
-                pack.inst_w_meta[mi], pack.inst_w_bounds[mi],
-                pack.inst_w_tris[mi], pack.inst_w_inst[mi],
-                meta.n_blas_tris[mi], o, d, tmin, tmax,
-                leaf_size=meta.blas_leaf_size[mi],
-                blas_root=meta.wide_blas_root[mi], has_inst=True,
-                any_hit=any_hit,
-            ))
-        elif meta.pallas_blas[mi]:
-            from ..ops import sweep_bvh
-            hits.append(sweep_bvh.intersect_sweep(
-                pack.inst_s_sph[mi], pack.inst_s_bw[mi],
-                pack.inst_s_tbl[mi], pack.inst_s_root[mi],
-                meta.n_blas_tris[mi], meta.n_groups_blas[mi],
-                o, d, tmin, tmax, n_inst=meta.n_inst[mi], any_hit=any_hit,
-            ))
-        else:
-            from ..ops import bvh as bvh_ops
-            hits.append(bvh_ops.intersect_instances(
-                pack.inst_off[mi], pack.inst_scale[mi],
-                pack.blas_nodes[mi], pack.blas_tris[mi], o, d, tmin, tmax,
-                leaf_size=meta.blas_leaf_size[mi], any_hit=any_hit,
-            ))
+        hits.append(bvh_ops.intersect_instances(
+            pack.inst_off[mi], pack.inst_scale[mi],
+            pack.blas_nodes[mi], pack.blas_tris[mi], o, d, tmin, tmax,
+            leaf_size=meta.bvh_leaf_size, any_hit=any_hit,
+        ))
         kinds.append(KIND_INST + mi)
     if meta.n_sph:
         hits.append(
@@ -355,17 +269,10 @@ def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
     mat_id = jnp.zeros((n,), jnp.int32)
     light_id = jnp.full((n,), -1, jnp.int32)
     want_uv = with_uv and meta.n_tex > 0
-    from ..ops.gather import take_rows
 
     def fetch(narr, marr, larr):
-        """One bundled lookup of (normal-ish [*,3], mat, light) per kind."""
-        cols = jnp.concatenate(
-            [narr, marr[:, None].astype(jnp.float32),
-             larr[:, None].astype(jnp.float32)], axis=1,
-        )
-        rows = take_rows(cols, index)
-        return (rows[:, :3], jnp.round(rows[:, 3]).astype(jnp.int32),
-                jnp.round(rows[:, 4]).astype(jnp.int32))
+        """(normal-ish [*,3], mat, light) rows of the winning primitive."""
+        return narr[index], marr[index], larr[index]
 
     for k in kinds:
         sel = kind == k
@@ -391,30 +298,16 @@ def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
             mi = k - KIND_INST
             inst = index // meta.n_blas_tris[mi]
             ti = index % meta.n_blas_tris[mi]
-            # bundled per-instance lookup (tiny table -> one-hot contraction)
-            icols = jnp.concatenate(
-                [pack.inst_off[mi], pack.inst_scale[mi][:, None],
-                 pack.inst_mat[mi][:, None].astype(jnp.float32),
-                 pack.inst_light[mi][:, None].astype(jnp.float32)], axis=1,
-            )
-            irows = take_rows(icols, inst)
-            mk = jnp.round(irows[:, 4]).astype(jnp.int32)
-            lk = jnp.round(irows[:, 5]).astype(jnp.int32)
+            off, scale, mk, lk = instance_rows(pack, mi, inst)
+            nk = pack.blas_n[mi][ti]
             if want_uv:
-                bcols = jnp.concatenate(
-                    [pack.blas_n[mi], pack.blas_tris[mi],
-                     pack.blas_uv[mi].reshape(-1, 6)], axis=1,
-                )
-                brows = take_rows(bcols, ti)
-                nk = brows[:, :3]
+                tri = pack.blas_tris[mi][ti]
                 # barycentrics in instance-local space (transform is
                 # conformal, so weights match world space; local is cheaper)
-                p_l = (p - irows[:, :3]) / jnp.maximum(
-                    irows[:, 3], 1e-12
-                )[:, None]
-                a = brows[:, 3:6]
-                v0 = brows[:, 6:9]     # e1 = p1 - p0
-                v1 = brows[:, 9:12]    # e2 = p2 - p0
+                p_l = (p - off) / jnp.maximum(scale, 1e-12)[:, None]
+                a = tri[:, 0:3]
+                v0 = tri[:, 3:6]       # e1 = p1 - p0
+                v1 = tri[:, 6:9]       # e2 = p2 - p0
                 v2 = p_l - a
                 d00 = dot(v0, v0)
                 d01 = dot(v0, v1)
@@ -425,13 +318,11 @@ def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
                 wb = (d11 * d20 - d01 * d21) / denom
                 wc = (d00 * d21 - d01 * d20) / denom
                 wa = 1.0 - wb - wc
-                uvs = brows[:, 12:].reshape(-1, 3, 2)
+                uvs = pack.blas_uv[mi][ti]
                 uvk = (
                     uvs[:, 0] * wa[:, None] + uvs[:, 1] * wb[:, None]
                     + uvs[:, 2] * wc[:, None]
                 )
-            else:
-                nk = take_rows(pack.blas_n[mi], ti)
         elif k == KIND_RECT:
             # rect normals face the ray (reference: src/shape.h:427)
             nk, mk, lk = fetch(pack.rect_n, pack.rect_mat, pack.rect_light)
@@ -480,6 +371,13 @@ def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
     )
 
 
+def instance_rows(pack: ScenePack, mi: int, inst):
+    """(offset [N,3], scale [N], material [N], light [N]) of the instances
+    `inst` [N] of mesh family mi."""
+    return (pack.inst_off[mi][inst], pack.inst_scale[mi][inst],
+            pack.inst_mat[mi][inst], pack.inst_light[mi][inst])
+
+
 def _tri_uv(pack: ScenePack, index, p):
     """Barycentric-interpolated vertex UVs for the winning triangle.
 
@@ -508,7 +406,7 @@ def _tri_uv(pack: ScenePack, index, p):
 
 
 def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
-             mask=None, sort: bool | None = None) -> jnp.ndarray:
+             mask=None, sort: bool = False) -> jnp.ndarray:
     """Visibility between two points, ray range [eps, dist-eps]
     (reference: src/scene.h:36-52). Any hit in range occludes; unlike the
     reference — which runs a full closest-hit trace — the BVH kinds take a
@@ -519,21 +417,11 @@ def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
     interval is emptied so BVH tiles full of them exit immediately) and
     report unoccluded.
 
-    For Pallas-sweep scenes the shadow batch is internally permuted by
-    (dead, needs-BVH, direction octant, origin Morton) and un-permuted
-    afterwards: env-light shadow rays scatter over the whole sphere and
-    mostly miss, so the any-hit bound never tightens and every culled
-    group gets tested — direction-octant packets shrink each packet's
-    culled-group union severalfold, and rays whose segment cannot touch
-    any BVH root sphere compact into packets the sweep kernel's root
-    pre-test retires immediately. The permutation is estimator-invisible.
-
-    Implementation note (measured, scripts/perm_micro.py): lane
-    permutations ride ONE variadic lax.sort (~0.3 ms per 1M-lane payload
-    column) and the un-permute is argsort+gather — a permutation
-    .at[perm].set() scatter costs ~25x the equivalent gather on TPU."""
-    from jax import lax
-
+    sort=True permutes the shadow batch by (dead, needs-BVH, direction
+    octant, origin Morton) before the walk and un-permutes the result
+    afterwards (ops/sort.py). The permutation is estimator-invisible; it
+    only changes which rays share a `lax.while_loop` trip. Off by default.
+    """
     delta = p_to - p_from
     dist = jnp.sqrt(jnp.maximum(dot(delta, delta), 1e-20))
     d = delta / dist[:, None]
@@ -543,22 +431,14 @@ def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
         tmin = jnp.where(mask, tmin, jnp.inf)
         tmax = jnp.where(mask, tmax, -1.0)
     o = p_from
-    if sort is None:
-        # production default: only kernel-routed scenes benefit; `sort` is
-        # an explicit parameter so CPU tests exercise the permute/unpermute
-        # path exactly (r4 VERDICT task 7)
-        sort = meta.kernel_routed
     if sort:
         from ..ops import sort as sort_ops
 
         n = dist.shape[0]
         alive = tmax > 0.0
         key = sort_ops.shadow_sort_key(meta, pack, alive, o, d, tmin, tmax)
-        # argsort + one packed gather. A/B'd against a variadic payload
-        # sort: identical end-to-end runtime (3.0M rays/s both ways on the
-        # bunny bench), but the 10-operand sort costs ~50 s of extra XLA
-        # compile even with its cross-site compilation reuse, so the
-        # 2-operand argsort (shared program-wide) wins.
+        # argsort + one packed gather: a variadic payload sort compiles
+        # much more slowly, and the 2-operand argsort is shared program-wide
         perm = jnp.argsort(key)
         state = jnp.concatenate(
             [o, d, tmin[:, None], tmax[:, None]], axis=1)[perm]
@@ -581,11 +461,8 @@ def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
 def emitted(pack: ScenePack, hit: Hit) -> jnp.ndarray:
     """Le at a hit point: one-sided area-light emission
     (reference: src/primitive.h:60-63, src/light.h:234-238)."""
-    from ..ops.gather import take_rows
-
     is_emitter = hit.light_id >= 0
-    lid = jnp.maximum(hit.light_id, 0)
-    radiance = take_rows(pack.light_c, lid)
+    radiance = pack.light_c[jnp.maximum(hit.light_id, 0)]
     facing = dot(hit.normal, hit.wo) > 0.0
     return jnp.where(
         (is_emitter & facing & hit.valid)[:, None], radiance, 0.0
@@ -613,39 +490,8 @@ def light_is_delta(meta: SceneMeta, light_index: int) -> bool:
 
 def gather_material(pack: ScenePack, mat_id):
     """Fetch material rows for a ray batch as
-    (kind, c0, c1, s0, s1, remap, tex, mf).
-
-    One one-hot contraction against the concatenated material table instead
-    of 8 separate gathers — gathers are the single most expensive op in the
-    TPU shading path (see ops/gather.py)."""
-    m = pack.mat_kind.shape[0]
-    import jax
-
-    cols = jnp.concatenate(
-        [
-            pack.mat_kind[:, None].astype(jnp.float32),
-            pack.mat_c0,
-            pack.mat_c1,
-            pack.mat_s0[:, None],
-            pack.mat_s1[:, None],
-            pack.mat_remap[:, None].astype(jnp.float32),
-            pack.mat_tex[:, None].astype(jnp.float32),
-            pack.mat_mf[:, None].astype(jnp.float32),
-        ],
-        axis=1,
-    )  # [M, 12]
-    if m <= 128:
-        oh = jax.nn.one_hot(mat_id, m, dtype=jnp.float32)
-        rows = oh @ cols
-    else:
-        rows = cols[mat_id]
-    return (
-        jnp.round(rows[:, 0]).astype(jnp.int32),
-        rows[:, 1:4],
-        rows[:, 4:7],
-        rows[:, 7],
-        rows[:, 8],
-        rows[:, 9] > 0.5,
-        jnp.round(rows[:, 10]).astype(jnp.int32),
-        jnp.round(rows[:, 11]).astype(jnp.int32),
-    )
+    (kind, c0, c1, s0, s1, remap, tex, mf)."""
+    return (pack.mat_kind[mat_id], pack.mat_c0[mat_id], pack.mat_c1[mat_id],
+            pack.mat_s0[mat_id], pack.mat_s1[mat_id],
+            pack.mat_remap[mat_id], pack.mat_tex[mat_id],
+            pack.mat_mf[mat_id])

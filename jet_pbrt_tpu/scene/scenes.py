@@ -111,10 +111,9 @@ def bunny_scene(use_bvh: bool | None = None, bunny_path: str | None = None,
 
     instancing=True (default) shares one mesh + BVH across the four copies
     through the two-level TLAS/BLAS path — 4x smaller hot tables than the
-    reference's four separately-loaded meshes, small enough for the packet
-    kernel's VMEM budget. instancing=False flattens the four copies into one
-    triangle soup + single BVH (the reference's layout), kept for parity
-    tests and experiments."""
+    reference's four separately-loaded meshes. instancing=False flattens
+    the four copies into one triangle soup + single BVH (the reference's
+    layout), kept for parity tests and experiments."""
     if bunny_path is None:
         bunny_path = os.path.join(ASSET_DIR, "bunny.obj")
     if not os.path.exists(bunny_path):

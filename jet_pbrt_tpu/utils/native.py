@@ -1,20 +1,53 @@
-"""ctypes bridge to the optional C++ runtime (native/libjetpbrt.so).
+"""ctypes bridge to the C++ host runtime (native/libjetpbrt.so).
 
 The reference implements its whole runtime in C++; here the hot *device*
 path is JAX/XLA, and the native library accelerates the hot *host* paths:
-OBJ parsing and BVH construction. Everything degrades gracefully to the
-numpy implementations when the library hasn't been built
-(`make -C native`).
+OBJ parsing and BVH construction. The library is built from the committed
+sources at first use (`make -C native`). If the build fails, that is logged
+once and everything falls back to the numpy implementations, which give the
+same results.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
 
 import numpy as np
 
+NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+LIB_PATH = os.path.join(NATIVE_DIR, "libjetpbrt.so")
+
 _LIB = None
 _TRIED = False
+
+
+def _build() -> bool:
+    """Build LIB_PATH under a file lock (parallel test workers race here):
+    compile to a temporary name, then rename atomically."""
+    from .log import log_print
+
+    with open(os.path.join(NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(LIB_PATH):
+            return True
+        tmp = f"libjetpbrt.so.tmp{os.getpid()}"
+        try:
+            subprocess.run(["make", "-s", "-C", NATIVE_DIR, f"LIB={tmp}"],
+                           check=True, capture_output=True, text=True,
+                           timeout=300)
+            os.replace(os.path.join(NATIVE_DIR, tmp), LIB_PATH)
+            return True
+        except (OSError, subprocess.SubprocessError) as e:
+            detail = getattr(e, "stderr", "") or str(e)
+            log_print("native library build failed; using the numpy "
+                      f"fallbacks: {detail.strip()[-500:]}")
+            return False
+        finally:
+            if os.path.exists(os.path.join(NATIVE_DIR, tmp)):
+                os.remove(os.path.join(NATIVE_DIR, tmp))
 
 
 def _lib():
@@ -22,12 +55,9 @@ def _lib():
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                        "libjetpbrt.so")
-    path = os.path.abspath(path)
-    if os.path.exists(path):
+    if os.path.exists(LIB_PATH) or _build():
         try:
-            lib = ctypes.CDLL(path)
+            lib = ctypes.CDLL(LIB_PATH)
             lib.jp_obj_count.restype = ctypes.c_longlong
             lib.jp_obj_count.argtypes = [ctypes.c_char_p]
             lib.jp_obj_load.restype = ctypes.c_longlong
@@ -81,8 +111,6 @@ def try_build_bvh_native(p0: np.ndarray, p1: np.ndarray, p2: np.ndarray,
     """Binned-SAH BVH build in C++ (native/bvh_build.cc). Returns the same
     ((bmin, bmax, miss, leaf_first, leaf_count), order) tuple as the numpy
     builder, or None when the library isn't built."""
-    import ctypes
-
     lib = _lib()
     if lib is None:
         return None

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Regenerate the committed self-golden renders under tests/golden/.
 
-Run on a TPU chip (seconds) or CPU (minutes). The goldens are
+Run on a GPU (seconds) or the CPU (minutes). The goldens are
 SELF-consistency oracles: a converged render of each authored scene at a
 fixed seed, against which the test suite asserts tight statistical
 tolerances (tests/test_golden.py). They complement — not replace — the
@@ -28,8 +28,8 @@ def main():
 
     # cornell: 48x48, 32k spp, maxdepth 5 — 64x the test render's spp, so
     # the test tolerance is dominated by the test render's own noise.
-    # (Backend choice does not matter: TPU and CPU renders of this config
-    # are bit-identical — same threefry decisions, same f32 path.)
+    # (The backend matters little: renders of this config agree to float
+    # rounding — same threefry decisions, same f32 path.)
     img = np.asarray(
         render(cornell_box(), 48, 48, spp=32768, seed=1234, max_depth=5)
     )

@@ -1,45 +1,43 @@
-"""Per-phase timing of ONE production bunny spp-wave (VERDICT r4 task 2).
+"""Per-phase timing of ONE bunny spp-wave on the device JAX runs on.
 
-Replicates li_path's exact wave sequence (same RNG streams, same sorting,
-same NEE masks) but jits and times each traversal/sort phase separately:
+Replicates li_path's wave sequence (same RNG streams, same NEE masks, no
+ray sorting — the default) but jits and times each traversal phase
+separately:
 
   cast b      closest-hit intersect() of bounce b
-  sort b      the between-bounce ray permutation (argsort + takes)
-  occl b/Li   the occluded() call for light Li at bounce b (incl. its
-              internal shadow-ray sort)
+  occl b/Li   the occluded() call for light Li at bounce b
 
-Also prints live-lane / useful-shadow-lane counts per phase so cost can be
-read per NEEDY lane, and a final table in ms plus the implied end-to-end
-rays/s. Run on the real chip:
+and then the whole wave (li_path) in one program. "other" is the whole wave
+minus the phases: shading, light and BSDF sampling, RNG. Also prints
+live-lane / useful-shadow-lane counts per phase so cost can be read per
+needy lane, and the estimator rays/s of the whole wave. Run:
 
     python scripts/wave_profile.py [width=1024] [reps=5]
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-sys.path.insert(0, ".")
-from bench import _morton_ids  # noqa: E402
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def main():
-    width = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
-    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
-
+def profile(width: int = 1024, reps: int = 5, log=print) -> list:
+    """Time each phase; returns [(label, ms)] with "whole wave" last."""
     from jet_pbrt_tpu.scene.scenes import bunny_scene
     from jet_pbrt_tpu.models import camera as camera_mod
+    from jet_pbrt_tpu.models.integrators import li_path
     from jet_pbrt_tpu.ops import bsdf as bsdf_ops
     from jet_pbrt_tpu.ops import lights as light_ops
     from jet_pbrt_tpu.ops import rng
-    from jet_pbrt_tpu.ops import sort as sort_ops
     from jet_pbrt_tpu.ops.linalg import (
-        absdot, frame_from_z, to_local, to_world, max_component, is_black,
+        frame_from_z, to_local, to_world, max_component, is_black,
     )
+    from jet_pbrt_tpu.ops.sort import morton_pixel_ids
     from jet_pbrt_tpu.scene import pack as scene_pack
 
     _sg = jax.lax.stop_gradient
@@ -48,13 +46,14 @@ def main():
     max_depth = 5
     n = width * width
     nl = meta.n_lights
-    print(f"scene={meta.name} {width}x{width} lights={nl} "
-          f"wide={meta.wide_blas} sweep={meta.pallas_blas}", flush=True)
+    dev = jax.devices()[0]
+    log(f"scene={meta.name} {width}x{width} lights={nl} "
+        f"device={dev.platform}:{dev.device_kind}")
 
     cam = camera_mod.make_camera(
         scene.camera.lookfrom, scene.camera.front, scene.camera.vup,
         scene.camera.vfov, (width, width))
-    ids = jnp.asarray(_morton_ids(width))
+    ids = jnp.asarray(morton_pixel_ids(width))
     keys0 = rng.lane_keys(0, 0, ids)
     jitter = rng.camera_jitter(keys0)
     x = (ids % width).astype(jnp.float32) + jitter[:, 0]
@@ -73,22 +72,19 @@ def main():
         jax.block_until_ready(out)
         dt = (time.perf_counter() - t0) / reps * 1e3
         rows.append((label, dt))
-        print(f"  {label:<18} {dt:9.2f} ms", flush=True)
+        log(f"  {label:<18} {dt:9.2f} ms")
         return out
 
     # ---- the wave, phase by phase ---------------------------------------
     u = keys0
     active = jnp.ones((n,), bool)
-    prev_specular = jnp.zeros((n,), bool)
     ray_o, ray_d = o, d
-    total_rays = 0.0
 
     for bounce in range(max_depth + 1):
         tmin = jnp.where(active, pack.ray_eps, jnp.inf)
         tmax = jnp.where(active, jnp.inf, -1.0)
         live = int(active.sum())
-        total_rays += live
-        print(f"bounce {bounce}: live={live} ({100*live/n:.1f}%)", flush=True)
+        log(f"bounce {bounce}: live={live} ({100*live/n:.1f}%)")
         hit = timed(
             f"cast b{bounce}",
             lambda o_, d_, t0_, t1_: scene_pack.intersect(
@@ -123,10 +119,9 @@ def main():
             useful = (cont & ~delta & (_sg(ls.pdf) > 0.0)
                       & ~is_black(ls.li) & ~is_black(f))
             nu = int(useful.sum())
-            total_rays += nu
             kind = meta.lights[li_idx].kind
-            print(f"  [occl b{bounce}/L{li_idx} kind={kind} "
-                  f"useful={nu} ({100*nu/n:.1f}%)]", flush=True)
+            log(f"  [occl b{bounce}/L{li_idx} kind={kind} "
+                f"useful={nu} ({100*nu/n:.1f}%)]")
             timed(
                 f"occl b{bounce}/L{li_idx}",
                 lambda p_, q_, m_: scene_pack.occluded(
@@ -145,46 +140,38 @@ def main():
         else:
             rr_die = jnp.zeros((n,), bool)
         active = cont & sample_ok & ~rr_die
-        prev_specular = bs.is_specular
         ray_o = jnp.where(active[:, None], hit.position, ray_o)
         ray_d = jnp.where(active[:, None], wi_world, ray_d)
 
-        # the between-bounce sort (sort_rays=True production path: one
-        # variadic lax.sort with the state as payload columns, needs-BVH
-        # pre-test in the key)
-        world_lo = pack.world_center - pack.world_radius
-        world_inv = 1.0 / jnp.maximum(2.0 * pack.world_radius, 1e-12)
+    phases = sum(dt for _, dt in rows)
+    _, st = timed(
+        "whole wave",
+        lambda o_, d_, u_: li_path(meta, pack, o_, d_, u_, max_depth,
+                                   with_stats=True),
+        o, d, keys0)
+    whole = rows[-1][1]
+    rays = float(st["rays"])
+    log("\n== summary ==")
+    for label, dt in rows[:-1]:
+        log(f"{label:<18} {dt:9.2f} ms  ({100*dt/whole:5.1f}% of wave)")
+    log(f"{'other':<18} {whole - phases:9.2f} ms  "
+        f"({100*(whole - phases)/whole:5.1f}% of wave)")
+    log(f"{'whole wave':<18} {whole:9.2f} ms")
+    log(f"estimator rays this wave: {rays:.0f} "
+        f"(primary {float(st['rays_primary']):.0f}, bounce "
+        f"{float(st['rays_bounce']):.0f}, shadow "
+        f"{float(st['rays_shadow']):.0f})")
+    log(f"whole wave: {rays / (whole / 1e3) / 1e6:.2f} M estimator rays/s")
+    return rows
 
-        def sort_step(act, o_, d_, u_):
-            needs = sort_ops.bvh_needed(
-                meta, pack, o_, d_,
-                jnp.where(act, pack.ray_eps, jnp.inf),
-                jnp.where(act, jnp.inf, -1.0))
-            skey = sort_ops.ray_sort_key(
-                act, _sg(o_), _sg(d_), _sg(world_lo),
-                jnp.broadcast_to(_sg(world_inv), (3,)), needs_bvh=needs)
-            ud = jax.random.key_data(u_)
-            outs = jax.lax.sort(
-                (skey, o_[:, 0], o_[:, 1], o_[:, 2],
-                 d_[:, 0], d_[:, 1], d_[:, 2], act, ud[:, 0], ud[:, 1]),
-                num_keys=1)
-            o2 = jnp.stack(outs[1:4], axis=-1)
-            d2 = jnp.stack(outs[4:7], axis=-1)
-            u2 = jax.random.wrap_key_data(
-                jnp.stack(outs[8:10], axis=-1).astype(jnp.uint32))
-            return outs[7], o2, d2, u2
 
-        if bounce < 3:  # production skips deep-bounce re-sorts (li_path)
-            active, ray_o, ray_d, u = timed(
-                f"sort b{bounce}", sort_step, active, ray_o, ray_d, u)
+def main():
+    width = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
+    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 5
+    from jet_pbrt_tpu.utils.device import enable_compile_cache
 
-    total = sum(dt for _, dt in rows)
-    print("\n== summary ==")
-    for label, dt in rows:
-        print(f"{label:<18} {dt:9.2f} ms  ({100*dt/total:5.1f}%)")
-    print(f"{'TOTAL':<18} {total:9.2f} ms")
-    print(f"estimator rays this wave: {total_rays:.0f}")
-    print(f"implied end-to-end: {total_rays / (total/1e3) / 1e6:.2f} M rays/s")
+    enable_compile_cache()
+    profile(width, reps)
 
 
 if __name__ == "__main__":

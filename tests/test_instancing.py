@@ -76,12 +76,11 @@ def test_instance_materials_resolve(scenes):
 
 
 def test_sort_rays_bit_invisible(scenes):
-    """sort_rays=True (the TPU production default) must be BIT-identical
-    to the unsorted estimator: every per-lane computation — RNG streams,
-    shading, gathers — travels with its lane through the permutations, and
-    nothing reduces across lanes. A broken lane/key/unsort mapping flips
-    pixels and fails exactly here (the machinery previously ran only on
-    TPU, where no test asserted it)."""
+    """sort_rays=True must be BIT-identical to the unsorted estimator:
+    every per-lane computation — RNG streams, shading, gathers — travels
+    with its lane through the permutations (between bounces and within the
+    shadow batches), and nothing reduces across lanes. A broken
+    lane/key/unsort mapping flips pixels and fails exactly here."""
     s_inst, _ = scenes
     a = render(s_inst, 20, 20, spp=4, seed=5, max_depth=4, clamp=False,
                sort_rays=True)
@@ -92,9 +91,8 @@ def test_sort_rays_bit_invisible(scenes):
 
 def test_occluded_sort_path_exact(scenes):
     """The shadow-batch permute -> any-hit -> unpermute path must return
-    EXACTLY the unsorted result lane-for-lane (r4 VERDICT task 7: the sort
-    machinery is now a parameter, so the CPU tier executes it — a wrong
-    unpermute gather flips shadow bits and fails here)."""
+    EXACTLY the unsorted result lane-for-lane (a wrong unpermute gather
+    flips shadow bits and fails here)."""
     import jax.numpy as jnp
     from jet_pbrt_tpu.scene import pack as scene_pack
 

@@ -10,9 +10,14 @@ from jet_pbrt_tpu.utils.native import (
 from jet_pbrt_tpu.scene import objio
 from jet_pbrt_tpu.ops import bvh as bvh_ops
 
-needs_native = pytest.mark.skipif(
-    not native_available(), reason="native lib not built (make -C native)"
-)
+
+@pytest.fixture()
+def native_lib():
+    """The native library, built at first use; skips if it cannot be
+    built on this machine (decided when the test runs)."""
+    if not native_available():
+        pytest.skip("native library could not be built (make -C native)")
+
 
 OBJ_SAMPLE = """\
 # sample
@@ -36,8 +41,7 @@ def obj_path(tmp_path):
     return str(p)
 
 
-@needs_native
-def test_native_obj_matches_python(obj_path):
+def test_native_obj_matches_python(native_lib, obj_path):
     tris_n, uvs_n = try_load_obj_native(obj_path)
     # force the python parser by parsing the text path directly
     import jet_pbrt_tpu.utils.native as native_mod
@@ -53,8 +57,7 @@ def test_native_obj_matches_python(obj_path):
     np.testing.assert_allclose(uvs_n, uvs_p)
 
 
-@needs_native
-def test_native_bvh_valid_and_traversable():
+def test_native_bvh_valid_and_traversable(native_lib):
     rng = np.random.default_rng(0)
     t = 500
     base = rng.uniform(-10, 10, (t, 1, 3)).astype(np.float32)
@@ -108,8 +111,7 @@ def test_native_bvh_valid_and_traversable():
     )
 
 
-@needs_native
-def test_native_bvh_bunny_scale():
+def test_native_bvh_bunny_scale(native_lib):
     """SAH build of the ~70k-tri bunny completes fast and traverses."""
     from jet_pbrt_tpu.scene.assets import bunny_mesh
 
